@@ -47,6 +47,15 @@ def _make_cli_mesh(args):
     return mesh
 
 
+def _log_device():
+    """Name the device the fit runs on, so a fall-back to the CPU shows."""
+    import jax
+
+    devs = jax.devices()
+    print(f"device: {devs[0].platform} {devs[0].device_kind} "
+          f"x{len(devs)}", file=sys.stderr)
+
+
 def cmd_gen(args):
     from massivedatans_tpu.datagen.generators import (
         GENERATORS, FILENAME_STEMS, save_dataset,
@@ -77,6 +86,7 @@ def cmd_fit(args):
     )
     x, y = load_spectra(args.data, args.ndata)
     problem = make_gaussline_problem(x, y, noise_level=args.noise_level)
+    _log_device()
     mesh = _make_cli_mesh(args)
     print(f"fitting {problem.ndata} datasets, nlive={cfg.nlive_points}, "
           f"constrainer={cfg.constrainer}", file=sys.stderr)
@@ -256,6 +266,7 @@ def cmd_musefit(args):
     maxdata = args.maxdata
     if maxdata is None:
         maxdata = int(os.environ.get("MAXDATA", 0))
+    _log_device()
     mesh = _make_cli_mesh(args)
     result, problem, cube = run_musefit(
         args.cube, args.region, args.zlo, args.zhi, args.templates,

@@ -2,7 +2,7 @@
 
 Reference layer L6 ("problem definition", survey §1) defines a problem as a
 ``priortransform(cube)`` plus ``multi_loglikelihood(params, data_mask)``
-(reference ``sample.py:52-108``). The TPU equivalent is batch-first and
+(reference ``sample.py:52-108``). The equivalent here is batch-first and
 mask-free: the log-likelihood takes a *batch* of parameter vectors and returns
 the full ``[B, D]`` matrix against every dataset in one XLA fusion — masking
 out finished datasets is the integrator's job, and costs nothing because the
@@ -31,7 +31,7 @@ class Problem:
       ``priortransform`` (sample.py:52-58).
     - ``loglike_batch(data, x[B, ndim]) -> L[B, D]`` replaces reference
       ``multi_loglikelihood(params, data_mask)`` (sample.py:101-108 /
-      clike.c:34-89), vectorized over a proposal batch on the MXU.
+      clike.c:34-89), vectorized over a proposal batch as one matmul.
     """
 
     data: Any

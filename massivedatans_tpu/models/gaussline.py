@@ -4,23 +4,22 @@ Reference: ``sample.py:44-108`` (3-parameter line fit) and its C kernel
 ``clike.c:34-89``, which evaluates one model curve and accumulates chi^2
 against all masked datasets.
 
-TPU-native form: for a batch of B parameter vectors, predict ``ypred[B, nx]``
+Batched form: for a batch of B parameter vectors, predict ``ypred[B, nx]``
 once, then score against all D spectra via
 
     chi2[b, d] = (||ypred_b||^2 - 2 ypred_b . y_d + ||y_d||^2) / noise^2
 
 so the D-fan-out — the entire point of collaborative nested sampling — is a
-single ``[B, nx] @ [nx, D]`` matmul on the MXU.
+single ``[B, nx] @ [nx, D]`` matmul.
 
 Precision note (why there is no bf16 fast path): nested sampling orders
 candidates by logL, so chi^2 needs absolute accuracy ~0.1 on a magnitude
 of ~2*nx (hundreds) — a relative accuracy of ~5e-4, i.e. >= 11 mantissa
 bits on the matmul *inputs*. bf16's 8-bit mantissa rounds y/ypred at 0.4%,
 which propagates to O(10-100) logL errors through the 1/noise^2 = 1e4
-amplification; f32 accumulation cannot repair input rounding. The matmul
-therefore stays f32 with ``Precision.HIGHEST`` — on the MXU this is still
-the right layout (f32 runs at ~1/4 the bf16 peak, far above what this
-latency-bound workload needs).
+amplification; f32 accumulation cannot repair input rounding. TF32 (10-bit
+mantissa, a GPU's DEFAULT f32 matmul precision) is as coarse. The matmul
+therefore stays f32 with ``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -59,7 +58,8 @@ def gaussline_predict(x_grid, params):
 
 
 def chi2_loglike_batch(data: GaussLineData, x_batch):
-    """``L[B, D]`` for all datasets at once via the MXU (replaces clike.c)."""
+    """``L[B, D]`` for all datasets at once as one matmul (replaces
+    clike.c)."""
     ypred = jax.vmap(lambda p: gaussline_predict(data.x, p))(x_batch)  # [B, nx]
     cross = jnp.dot(
         ypred, data.y,

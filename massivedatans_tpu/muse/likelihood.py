@@ -1,4 +1,4 @@
-"""Scale-marginalized spectral likelihood on the MXU.
+"""Scale-marginalized spectral likelihood as batched matmuls.
 
 Reference ``cmuselike.c:34-66`` computes, per dataset, the LePhare-style
 best-fit amplitude ``s = sum(y*m/var) / sum(m^2/var)`` and then

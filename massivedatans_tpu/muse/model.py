@@ -5,10 +5,10 @@ Re-design of the reference model (``musefuse.py:160-346``): a 5-parameter
 synthesis over a metallicity/age template grid, Calzetti extinction, and a
 redshift interpolation onto the instrument wavelength grid.
 
-TPU translation (survey §7 "MUSE model on TPU"):
+Batched translation (survey §7):
 - the per-metallicity template list becomes one dense tensor
   ``templates[nZ, n_ages, n_wl]`` gathered by a data-dependent index,
-- the SFH weighting is a batched matvec ``sfh @ templates[iZ]`` (MXU),
+- the SFH weighting is a batched matvec ``sfh @ templates[iZ]``,
 - ``numpy.interp`` onto the shifted grid becomes ``jnp.interp`` (jittable),
 - NaN handling moves into precomputed masks (likelihood side).
 """
@@ -115,11 +115,10 @@ def load_template_grid(filenames, ages=None, data_wl_nm=None,
     The library is resampled onto a UNIFORM wavelength grid
     (``uniform_oversample`` × the native point count, host-side numpy):
     ``predict_spectrum``'s redshift lookup then reduces to arithmetic
-    indexing + two gathers. The general ``jnp.interp`` over a non-uniform
-    grid lowers to a gather-chain searchsorted that measured 52 ms of a
-    52.3 ms MUSE model call at B=128 on a v5e — 35× the cost of the
-    entire synthesis + likelihood. 2× oversampling keeps the re-gridding
-    error second-order and far below the instrument's LSF scale."""
+    indexing + two gathers instead of the searchsorted over a non-uniform
+    grid that the general ``jnp.interp`` needs. 2× oversampling keeps the
+    re-gridding error second-order and far below the instrument's LSF
+    scale."""
     grids = []
     model_wl = None
     for fn in filenames:
@@ -231,14 +230,13 @@ def predict_spectrum(md: MuseModelData, Z, logSFtau, sfage, z, EBV):
         w, model_templates[:-1],
         precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
-    )  # [n_wl] — MXU matvec; HIGHEST: chi2 weights amplify model error
+    )  # [n_wl] — matvec; HIGHEST: chi2 weights amplify model error
     template = template / (1e-10 + template[md.norm_index])
     template = template * 10.0 ** (-2.5 * md.calzetti * EBV)
     # redshift: sample the restframe model at data_wl / (1 + z). The model
     # grid is uniform (load_template_grid resamples it), so the lookup is
-    # arithmetic indexing + two gathers — jnp.interp's searchsorted over a
-    # non-uniform grid cost 52 ms/round at B=128 (v5e), 35× the rest of
-    # the model+likelihood combined. Edge behavior matches jnp.interp:
+    # arithmetic indexing + two gathers, with no searchsorted over a
+    # non-uniform grid. Edge behavior matches jnp.interp:
     # queries outside the grid clamp to the endpoint values.
     q = md.data_wl / (1.0 + z)
     n = md.model_wl.shape[0]
@@ -269,9 +267,9 @@ def predict_batch(md: MuseModelData, x_batch, zsol: bool = False):
     Batch-first synthesis: the metallicity selection is a one-hot
     contraction ``(ba,zaw->bzw) x (bz->bw)`` rather than a per-candidate
     ``templates[iZ]`` gather — the gather materializes a
-    [B, n_ages, n_wl] block (~0.5 GB at B=512 on the 2× uniform grid),
-    which exhausted TPU HBM inside the fill-loop graph; the einsum keeps
-    the peak at [B, nZ, n_wl] and runs on the MXU."""
+    [B, n_ages, n_wl] block (~0.5 GB at B=512 on the 2× uniform grid)
+    inside the fill-loop graph; the einsum keeps the peak at
+    [B, nZ, n_wl] and is one matmul."""
     if zsol:
         # fixed Z = 0.004 (Patricio2018; musefuse.py:540-543)
         Zp = jnp.full((x_batch.shape[0],), np.log10(0.004), jnp.float32)
@@ -294,8 +292,8 @@ def predict_batch(md: MuseModelData, x_batch, zsol: bool = False):
     )                                                     # [B, nZ, n_wl]
     # exact one-hot selection: multiply-by-{0,1} + sum over the tiny nZ
     # axis (7) keeps full f32 — a dot_general here would run at DEFAULT
-    # matmul precision (bf16 inputs on TPU), rounding per_z at ~0.4% which
-    # the 1/noise^2 chi2 amplifies into O(10) logL errors
+    # matmul precision (TF32 on a GPU), rounding per_z at ~0.1% which the
+    # 1/noise^2 chi2 amplifies into O(10) logL errors
     template = jnp.sum(per_z * zhot[:, :, None], axis=1)  # [B, n_wl]
     template = template / (1e-10 + template[:, md.norm_index][:, None])
     template = template * 10.0 ** (-2.5 * md.calzetti[None, :]

@@ -86,11 +86,8 @@ def make_model_cube(path: str, region_path: str, template_files,
     """
     import json
 
-    import jax.numpy as jnp
+    from massivedatans_tpu.muse.model import load_template_grid
 
-    from massivedatans_tpu.muse.model import load_template_grid, predict_batch
-
-    rng = np.random.default_rng(seed)
     # MUSE native sampling is cd3=1.25 A/bin from 4750 A (musefuse.py:89).
     # What makes parameters identifiable under the profiled amplitude is
     # the total spectral SPAN (nspec * cd3), not the bin count — a narrow
@@ -101,9 +98,50 @@ def make_model_cube(path: str, region_path: str, template_files,
     md = load_template_grid(template_files, data_wl_nm=wl_nm,
                             zlo=zlo, zhi=zhi)
     D = ny * nx
+    cube, theta, amp, empty = make_model_spectra(
+        md, D, seed=seed, noise=noise, zlo=zlo, zhi=zhi,
+        frac_empty=frac_empty, flux_lo=flux_lo, flux_hi=flux_hi)
+    cube = cube.reshape(nspec, ny, nx)
+    stat = np.full((nspec, ny, nx), noise ** 2, np.float32)
+    fits_write(path, {"DATA": cube, "STAT": stat},
+               extra_cards={"CRVAL3": crval3, "CD3_3": cd3})
+    with open(region_path, "w") as fh:
+        # whole-field box: every spaxel selected, D columns in flat
+        # row-major order = truths order
+        fh.write("# Region file format: DS9\nimage\n")
+        fh.write(f"box({nx/2:.1f},{ny/2:.1f},{nx*2},{ny*2})\n")
+    yy = np.nansum(cube.reshape(nspec, D) ** 2 / noise ** 2, axis=0)
+    with open(truths_path, "w") as fh:
+        json.dump({
+            "params": theta.tolist(),
+            "param_names": ["Z", "logSFtau", "SFage", "z", "EBV"],
+            "amp": amp.tolist(),
+            "empty": empty.tolist(),
+            "noise": noise, "nspec": nspec, "ny": ny, "nx": nx,
+            "zlo": zlo, "zhi": zhi, "seed": seed,
+            "yy": yy.tolist(),
+        }, fh)
+    return path, region_path, truths_path
+
+
+def make_model_spectra(md, D: int, seed: int = 3, noise: float = 0.05,
+                       zlo: float = 0.0, zhi: float = 0.5,
+                       frac_empty: float = 0.1, flux_lo: float = 0.3,
+                       flux_hi: float = 3.0):
+    """``D`` spectra drawn from the fitted model family on ``md``'s data
+    grid (see :func:`make_model_cube`).
+
+    Returns ``(y [nspec, D] f32, theta [D, 5], amp [D], empty [D])``; the
+    noise is Gaussian with standard deviation ``noise`` in every bin.
+    """
+    import jax.numpy as jnp
+
+    from massivedatans_tpu.muse.model import _SFTAU_GRID, predict_batch
+
+    rng = np.random.default_rng(seed)
+    nspec = md.data_wl.shape[0]
     empty = rng.uniform(size=D) < frac_empty
     zg = np.asarray(md.z_grid, np.float64)
-    from massivedatans_tpu.muse.model import _SFTAU_GRID
     theta = np.column_stack([
         rng.uniform(zg[0], zg[-1], D),                    # Z (log10)
         rng.uniform(_SFTAU_GRID[0], _SFTAU_GRID[-1], D),  # logSFtau
@@ -131,28 +169,8 @@ def make_model_cube(path: str, region_path: str, template_files,
     amp = np.where(empty, 0.0,
                    target / np.maximum(mean_flux, 1e-300))
     spec = np.where(empty[:, None], 0.0, amp[:, None] * model)
-    cube = (spec.T + rng.normal(0.0, noise, (nspec, D))).astype(np.float32)
-    cube = cube.reshape(nspec, ny, nx)
-    stat = np.full((nspec, ny, nx), noise ** 2, np.float32)
-    fits_write(path, {"DATA": cube, "STAT": stat},
-               extra_cards={"CRVAL3": crval3, "CD3_3": cd3})
-    with open(region_path, "w") as fh:
-        # whole-field box: every spaxel selected, D columns in flat
-        # row-major order = truths order
-        fh.write("# Region file format: DS9\nimage\n")
-        fh.write(f"box({nx/2:.1f},{ny/2:.1f},{nx*2},{ny*2})\n")
-    yy = np.nansum(cube.reshape(nspec, D) ** 2 / noise ** 2, axis=0)
-    with open(truths_path, "w") as fh:
-        json.dump({
-            "params": theta.tolist(),
-            "param_names": ["Z", "logSFtau", "SFage", "z", "EBV"],
-            "amp": amp.tolist(),
-            "empty": empty.tolist(),
-            "noise": noise, "nspec": nspec, "ny": ny, "nx": nx,
-            "zlo": zlo, "zhi": zhi, "seed": seed,
-            "yy": yy.tolist(),
-        }, fh)
-    return path, region_path, truths_path
+    y = (spec.T + rng.normal(0.0, noise, (nspec, D))).astype(np.float32)
+    return y, theta, amp, empty
 
 
 def make_synthetic_cube(path: str, region_path: str, nspec: int = 300,

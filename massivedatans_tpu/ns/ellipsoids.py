@@ -2,7 +2,7 @@
 
 Capability equivalent of reference ``elldrawer.py:25-102``, which delegates to
 the external ``nestle`` package (``bounding_ellipsoids``/``sample_ellipsoids``)
-and enlarges volumes 3x. This implementation is TPU-native and static-shape:
+and enlarges volumes 3x. This implementation is static-shape jnp:
 
 - a fixed budget of E ellipsoids assigned by a few Lloyd iterations of
   k-means on the whitened members,
@@ -19,6 +19,15 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# [M, ndim]-sized products: full f32 costs nothing here, and on a GPU the
+# DEFAULT precision would run them in TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
 
 _NEG_BIG = -1e30
 
@@ -42,7 +51,7 @@ def _kmeans_assign(w, mask, key, n_clusters: int, iters: int = 8):
     def step(centers, _):
         d2 = (
             jnp.sum(jnp.square(w), axis=1)[:, None]
-            - 2.0 * w @ centers.T
+            - 2.0 * _mm(w, centers.T)
             + jnp.sum(jnp.square(centers), axis=1)[None, :]
         )  # [M, E]
         assign = jnp.argmin(d2, axis=1)
@@ -51,7 +60,7 @@ def _kmeans_assign(w, mask, key, n_clusters: int, iters: int = 8):
             * mask[:, None].astype(w.dtype)
         )  # [M, E]
         counts = onehot.sum(axis=0)  # [E]
-        sums = onehot.T @ w  # [E, ndim]
+        sums = _mm(onehot.T, w)  # [E, ndim]
         new_centers = jnp.where(
             counts[:, None] > 0, sums / jnp.maximum(counts[:, None], 1.0), centers
         )
@@ -60,7 +69,7 @@ def _kmeans_assign(w, mask, key, n_clusters: int, iters: int = 8):
     centers, _ = jax.lax.scan(step, centers, None, length=iters)
     d2 = (
         jnp.sum(jnp.square(w), axis=1)[:, None]
-        - 2.0 * w @ centers.T
+        - 2.0 * _mm(w, centers.T)
         + jnp.sum(jnp.square(centers), axis=1)[None, :]
     )
     return jnp.argmin(d2, axis=1)
@@ -80,18 +89,18 @@ def fit_ellipsoids(w, mask, key, n_ellipsoids: int = 4,
     global_w = mask[:, None].astype(w.dtype)
     g_n = jnp.maximum(global_w.sum(), 1.0)
     g_mean = (w * global_w).sum(axis=0) / g_n
-    g_cov = ((w - g_mean) * global_w).T @ (w - g_mean) / g_n
+    g_cov = _mm(((w - g_mean) * global_w).T, w - g_mean) / g_n
 
     means = jnp.where(
         valid[:, None],
-        (onehot.T @ w) / jnp.maximum(counts[:, None], 1.0),
+        _mm(onehot.T, w) / jnp.maximum(counts[:, None], 1.0),
         g_mean[None, :],
     )  # [E, ndim]
 
     def cov_for(e):
         diff = w - means[e]
         wts = onehot[:, e]
-        c = (diff * wts[:, None]).T @ diff / jnp.maximum(counts[e], 1.0)
+        c = _mm((diff * wts[:, None]).T, diff) / jnp.maximum(counts[e], 1.0)
         return jnp.where(valid[e], c, g_cov)
 
     covs = jax.vmap(cov_for)(jnp.arange(E))  # [E, ndim, ndim]
@@ -106,7 +115,7 @@ def fit_ellipsoids(w, mask, key, n_ellipsoids: int = 4,
 
     def maxdist(e):
         diff = w - means[e]
-        z = diff @ inv_chol[e].T  # [M, ndim]
+        z = _mm(diff, inv_chol[e].T)  # [M, ndim]
         m2 = jnp.sum(jnp.square(z), axis=1)
         sel = (assign == e) & mask
         return jnp.max(jnp.where(sel, m2, 0.0))
@@ -132,7 +141,7 @@ def count_containing(ells: Ellipsoids, u) -> jax.Array:
     """Number of ellipsoids containing each point [N]."""
 
     def per_ell(mean, inv_chol, valid):
-        z = (u - mean) @ inv_chol.T
+        z = _mm(u - mean, inv_chol.T)
         return ((jnp.sum(jnp.square(z), axis=1) <= 1.0) & valid).astype(jnp.int32)
 
     counts = jax.vmap(per_ell)(ells.mean, ells.inv_chol, ells.valid)  # [E, N]
@@ -154,7 +163,8 @@ def sample_ellipsoids(ells: Ellipsoids, key, nprop: int):
     direction = direction / jnp.linalg.norm(direction, axis=1, keepdims=True)
     radius = jax.random.uniform(k_rad, (nprop, 1)) ** (1.0 / ndim)
     z = direction * radius
-    w = ells.mean[pick] + jnp.einsum("nij,nj->ni", ells.cov_chol[pick], z)
+    w = ells.mean[pick] + jnp.einsum("nij,nj->ni", ells.cov_chol[pick], z,
+                                     precision=_HIGHEST)
     n = count_containing(ells, w)  # >= 1 by construction
     coin = jax.random.uniform(k_coin, (nprop,))
     ok = coin * n.astype(coin.dtype) < 1.0

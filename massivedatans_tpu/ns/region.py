@@ -1,6 +1,6 @@
 """MLFriends region geometry, fully on-device.
 
-Re-implements reference layer L2/L3 (survey §1) the TPU way:
+Re-implements reference layer L2/L3 (survey §1) as static-shape jnp:
 
 - metric learning (reference ``clustering/sdml.py:25-88``: identity /
   simple / truncated power-of-two scaling) as pure jnp,
@@ -19,7 +19,6 @@ validity mask, so regions can live inside ``jit``/``scan``/``while_loop``.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -27,24 +26,6 @@ import jax.numpy as jnp
 
 _NEG_BIG = -1e30
 _POS_BIG = 1e30
-
-
-def _use_pallas() -> bool:
-    """Resolve the region-kernel backend at trace time.
-
-    ``MDT_REGION_BACKEND`` ∈ {auto, jnp, pallas}; ``auto`` (default) selects
-    the fused Pallas kernels (ops/pallas_neighbors.py) on TPU and the
-    XLA-matmul forms elsewhere. Both are oracle-tested for equivalence.
-    """
-    mode = os.environ.get("MDT_REGION_BACKEND", "auto")
-    if mode == "jnp":
-        return False
-    if mode == "pallas":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 class Metric(NamedTuple):
@@ -97,7 +78,7 @@ class Region(NamedTuple):
 
 
 def pairwise_sqdist(a, b, precision=jax.lax.Precision.HIGHEST):
-    """[N, M] squared euclidean distances via the MXU."""
+    """[N, M] squared euclidean distances as one f32 matrix product."""
     cross = jnp.dot(a, b.T, precision=precision, preferred_element_type=jnp.float32)
     ssa = jnp.sum(jnp.square(a), axis=1)
     ssb = jnp.sum(jnp.square(b), axis=1)
@@ -152,27 +133,30 @@ def bootstrapped_sq_radius(
 
     Mirrors ``cneighbors.c:125-179`` / ``neighbors.py:211-238``: each round
     draws n samples with replacement; points never drawn are out-of-bag and
-    must be covered by a ball around some in-bag point. The bag draws are
-    shared between backends, so jnp and Pallas produce identical radii.
+    must be covered by a ball around some in-bag point.
     With ``norm="chebyshev"`` this is the SupFriends box radius
     (``clustering/neighbors.py:65-86`` find_maxdistance semantics, with the
     same bootstrap protocol instead of the plain max-NN estimate).
     """
     inbag = bootstrap_inbag_rounds(mask, key, nbootstraps)
-    if norm == "euclidean" and _use_pallas():
-        from massivedatans_tpu.ops.pallas_neighbors import (
-            bootstrapped_sq_radius_pallas,
-        )
+    return sq_radius_from_inbag(w, mask, inbag, norm=norm)
 
-        return bootstrapped_sq_radius_pallas(w, mask, inbag)
-    d2 = _pairwise(w, w, norm)  # [M, M]; shared by all bootstrap rounds
 
-    def one_round(inbag_b):
-        oob = mask & ~inbag_b
-        nearest = jnp.min(jnp.where(inbag_b[None, :], d2, _POS_BIG), axis=1)
-        return jnp.max(jnp.where(oob, nearest, 0.0))
+def sq_radius_from_inbag(w, mask, inbag, norm: str = "euclidean") -> jax.Array:
+    """Squared radius for given in-bag flags ``inbag[nb, M]``: the largest
+    distance from an out-of-bag member to its nearest in-bag member, maxed
+    over rounds. A round with an empty bag has no ball to cover anything
+    and contributes nothing (the reference skips it)."""
+    with jax.named_scope("region_bootstrap_radius"):
+        d2 = _pairwise(w, w, norm)  # [M, M]; shared by all bootstrap rounds
 
-    return jnp.max(jax.vmap(one_round)(inbag))
+        def one_round(inbag_b):
+            oob = mask & ~inbag_b
+            nearest = jnp.min(jnp.where(inbag_b[None, :], d2, _POS_BIG), axis=1)
+            rmax = jnp.max(jnp.where(oob, nearest, 0.0))
+            return jnp.where(rmax >= _POS_BIG, 0.0, rmax)
+
+        return jnp.max(jax.vmap(one_round)(inbag))
 
 
 def jackknife_sq_radius(w, mask, norm: str = "euclidean") -> jax.Array:
@@ -257,15 +241,10 @@ def build_region(
 
 def count_within(region: Region, w_points, norm: str = "euclidean") -> jax.Array:
     """Number of member balls containing each point (cneighbors.c:95-119)."""
-    if norm == "euclidean" and _use_pallas():
-        from massivedatans_tpu.ops.pallas_neighbors import count_within_pallas
-
-        return count_within_pallas(
-            region.members_w, region.member_mask, w_points, region.radius
-        )
-    d2 = _pairwise(w_points, region.members_w, norm)  # [N, M]
-    near = (d2 < jnp.square(region.radius)) & region.member_mask[None, :]
-    return near.sum(axis=1)
+    with jax.named_scope("region_count_within"):
+        d2 = _pairwise(w_points, region.members_w, norm)  # [N, M]
+        near = (d2 < jnp.square(region.radius)) & region.member_mask[None, :]
+        return near.sum(axis=1)
 
 
 def ball_offsets(key, n: int, ndim: int, radius, norm: str = "euclidean"):

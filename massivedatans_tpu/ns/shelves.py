@@ -35,9 +35,9 @@ def clean(shelves: Shelves, Lmins) -> Shelves:
     """Drop entries with L <= Lmin(d), preserving FIFO order
     (reference ``prepare()``, multi_nested_sampler.py:134-143).
 
-    Stable compaction WITHOUT argsort/gather: per-column gathers on TPU
-    stage through scoped memory (~1 ms/iteration at D=10^4, profiled);
-    the S-unrolled one-hot writes below are plain [S, D] vector passes.
+    Stable compaction WITHOUT argsort/gather: the S-unrolled one-hot
+    writes below are plain [S, D] vector passes, with no per-column
+    indexed access.
     """
     S = shelves.L.shape[0]
     slot = jnp.arange(S)[:, None]

@@ -13,7 +13,7 @@ fill loop:
 - ``observe(sstate, cand_u, chain_accept)`` → sstate (likelihood feedback,
   used by the slice strategy's accept/shrink rule).
 
-All three produce fixed-size candidate batches, so the engine's MXU-matmul
+All three produce fixed-size candidate batches, so the engine's matmul
 scoring and shelf scatter are strategy-independent.
 """
 
@@ -213,7 +213,8 @@ def make_slice(cfg: RunConfig, nsteps: int | None = None,
         n = jnp.maximum(mf.sum(), 2.0)
         mean = (members_u * mf).sum(axis=0) / n
         centered = (members_u - mean) * mf
-        cov = centered.T @ centered / (n - 1.0)
+        cov = jnp.matmul(centered.T, centered,
+                         precision=jax.lax.Precision.HIGHEST) / (n - 1.0)
         cov = cov + 1e-10 * jnp.eye(ndim, dtype=cov.dtype)
         chol = jnp.linalg.cholesky(cov)
         return SliceGeom(members_u=members_u, member_mask=member_mask,
@@ -236,7 +237,8 @@ def make_slice(cfg: RunConfig, nsteps: int | None = None,
         d = jax.random.normal(key, (axis.shape[0], ndim))
         if direction == "mahalanobis":
             # live-point-covariance direction (whitenedmcmc.py:200-215)
-            d = d @ geom.chol.T
+            d = jnp.matmul(d, geom.chol.T,
+                           precision=jax.lax.Precision.HIGHEST)
         else:
             d = d * geom.metric.scale[None, :]
         d = d / jnp.linalg.norm(d, axis=1, keepdims=True)

@@ -13,7 +13,8 @@ Implements the reference's short-circuits exactly:
 - a superpoint (live in every selected dataset) ⇒ all connected (:226-231).
 
 The union-find over the bipartite dataset/point graph runs in native C++
-(native/unionfind.cpp, built on demand) with a pure-numpy fallback.
+(native/unionfind.cpp, built on first use and rebuilt when the source
+is newer) with a pure-numpy fallback.
 """
 
 from __future__ import annotations
@@ -27,28 +28,42 @@ import numpy as np
 
 log = logging.getLogger("massivedatans_tpu")
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           os.pardir, "native")
+_NATIVE_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)),
+    os.pardir, "native"))
 _lib = None
 _lib_tried = False
+_native_status = "not loaded yet"
+
+
+def build_native(native_dir: str = _NATIVE_DIR) -> str:
+    """Build ``libunionfind.so`` from ``unionfind.cpp`` with the directory's
+    Makefile when the library is missing or older than its source; returns
+    the library path. Raises if the build fails."""
+    so_path = os.path.join(native_dir, "libunionfind.so")
+    src_path = os.path.join(native_dir, "unionfind.cpp")
+    if (not os.path.exists(so_path)
+            or os.path.getmtime(src_path) > os.path.getmtime(so_path)):
+        proc = subprocess.run(["make", "-s", "-C", native_dir],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            raise RuntimeError(f"make failed: {proc.stderr.strip()[-500:]}")
+    return so_path
+
+
+def native_status() -> str:
+    """How component labels are computed: the native library or numpy."""
+    _load_native()
+    return _native_status
 
 
 def _load_native():
-    global _lib, _lib_tried
+    global _lib, _lib_tried, _native_status
     if _lib_tried:
         return _lib
     _lib_tried = True
-    so_path = os.path.join(_NATIVE_DIR, "libunionfind.so")
-    if not os.path.exists(so_path):
-        try:
-            subprocess.run(
-                ["make", "-s", "-C", _NATIVE_DIR],
-                check=True, capture_output=True, timeout=120,
-            )
-        except Exception as e:  # toolchain missing: numpy fallback
-            log.info("native unionfind build failed (%s); using numpy", e)
-            return None
     try:
+        so_path = build_native()
         lib = ctypes.cdll.LoadLibrary(so_path)
         lib.decompose_components.restype = ctypes.c_int32
         lib.decompose_components.argtypes = [
@@ -58,8 +73,10 @@ def _load_native():
             np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
         ]
         _lib = lib
-    except Exception as e:
-        log.info("native unionfind load failed (%s); using numpy", e)
+        _native_status = f"native union-find loaded from {so_path}"
+    except Exception as e:  # toolchain missing or build failed
+        log.warning("native union-find unavailable (%s); using numpy", e)
+        _native_status = f"numpy fallback: native union-find unavailable ({e})"
         _lib = None
     return _lib
 

@@ -1,19 +1,19 @@
 """Dataset-parallel execution over a device mesh.
 
 The reference's only parallelism is OpenMP threads inside C kernels fanned
-over datasets (survey §2 accounting). The TPU-native equivalent shards the
+over datasets (survey §2 accounting). The equivalent here shards the
 dataset axis D over a 1-D ``jax.sharding.Mesh``:
 
 - per-dataset state (live points, shelves, logZ/H, running masks) and the
   spectra ``y[:, D]`` are sharded on D;
 - the point pile and all proposal batches are *replicated* — identical RNG
   on every shard means one shared model evaluation per candidate across the
-  whole machine, which is exactly the collaborative-sampling trick at pod
-  scale;
+  whole machine, which is exactly the collaborative-sampling trick across
+  devices;
 - the only communication is (i) a psum vote for the fill loop, (ii) a psum
   vote to keep the pile bit-identical, and (iii) an all_gather of unique
   live-point *indices* for region construction — a few KB per iteration,
-  riding ICI.
+  over the device interconnect (NVLink between GPUs).
 """
 
 from __future__ import annotations

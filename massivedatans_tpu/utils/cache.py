@@ -1,8 +1,15 @@
 """Persistent XLA compilation cache setup.
 
-Engine step graphs take O(10s)–O(100s) to compile (more through a remote
-compile service); a disk cache amortizes that across processes and rounds.
-Called by the CLI, bench and graft entry points.
+Engine step graphs take seconds to minutes to compile; a disk cache
+amortizes that across processes. Called by the CLI, bench and
+``chip_smoke.py``.
+
+Where the cache lives: if ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it
+itself and this module sets no directory. Otherwise the cache is the fixed
+directory ``.jax_cache/`` at the root of the checkout (git-ignored): a
+fixed path, because the path is part of what makes a cache hit. The cache
+stays off where ``jax_enable_compilation_cache`` is false (the test suite
+sets that).
 """
 
 from __future__ import annotations
@@ -12,29 +19,27 @@ import os
 
 log = logging.getLogger("massivedatans_tpu")
 
-_DEFAULT_DIR = os.environ.get(
-    "MDT_COMPILE_CACHE", os.path.expanduser("~/.cache/mdt_xla_cache")
-)
+DEFAULT_CACHE_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir,
+    ".jax_cache"))
 
 
-def enable_compilation_cache(path: str | None = None) -> bool:
-    """Point jax at a persistent on-disk compilation cache.
+def enable_compilation_cache() -> str | None:
+    """Turn on JAX's persistent compilation cache; returns its directory,
+    or None when the cache is disabled or unavailable."""
+    import jax
 
-    ``MDT_COMPILE_CACHE=""`` (empty) disables the cache entirely — the
-    test suite uses this: jax's executable serialization segfaults on the
-    virtual-8-device sharded CPU executables when a cache write actually
-    fires, and tests compile locally in seconds anyway."""
-    if path is None and _DEFAULT_DIR == "":
-        return False
+    if not jax.config.jax_enable_compilation_cache:
+        return None
+    cache_dir = os.environ.get("JAX_COMPILATION_CACHE_DIR")
     try:
-        import jax
-
-        cache_dir = path or _DEFAULT_DIR
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
+        if not cache_dir:
+            cache_dir = DEFAULT_CACHE_DIR
+            os.makedirs(cache_dir, exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir", cache_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-        return True
-    except Exception as e:  # older jax or read-only fs: non-fatal
-        log.info("compilation cache unavailable: %s", e)
-        return False
+    except OSError as e:  # read-only checkout: compile every time
+        log.warning("compilation cache unavailable: %s", e)
+        return None
+    return cache_dir

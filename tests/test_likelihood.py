@@ -1,7 +1,7 @@
 """Likelihood-kernel equivalence tests.
 
 The reference validates its C likelihood against a pure-Python version by
-eye/commented asserts (sample.py:64-112, musefuse.py:544-574). Here the MXU
+eye/commented asserts (sample.py:64-112, musefuse.py:544-574). Here the
 matmul form is checked against a float64 numpy direct-difference oracle.
 """
 

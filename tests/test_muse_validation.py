@@ -1,7 +1,7 @@
 """Model-family MUSE truth recovery, tiny CPU version.
 
 The flagship-scale artifact is MUSE_VALIDATION.json (tools/muse_validate.py,
-run on TPU at >=100 spaxels). This test asserts the same properties hold on
+run at >=100 spaxels). This test asserts the same properties hold on
 a miniature of the exact fixture: every non-empty spaxel is drawn from the
 fit prior of the 5-parameter family (muse.synth.make_model_cube), so
 posterior truth recovery is well-defined (the reference's standard,

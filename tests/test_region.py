@@ -8,17 +8,22 @@ counts vs scipy.cdist and a statistical uniformity check of region sampling.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import scipy.spatial
 
 from massivedatans_tpu.ns.region import (
     Metric,
+    Region,
+    bootstrap_inbag_rounds,
     build_region,
     bootstrapped_sq_radius,
     count_within,
     fit_metric,
+    identity_metric,
     pairwise_sq_chebyshev,
     pairwise_sqdist,
     sample_region,
+    sq_radius_from_inbag,
 )
 
 
@@ -215,3 +220,103 @@ def test_force_shrink_caps_radius():
                       jax.random.key(1), nbootstraps=8, metriclearner="none",
                       prev_scale=r1.metric.scale, prev_radius=small)
     assert float(r2.radius) <= float(small) + 1e-7
+
+
+# --- fixed-bag and large-member-set oracles for the radius and membership
+# reductions (cneighbors.c:95-179 semantics) -------------------------------
+
+
+def _region_from(members, mask, r):
+    """A Region around fixed members with a given radius (identity metric)."""
+    members = jnp.asarray(members)
+    ndim = members.shape[1]
+    return Region(
+        members_w=members, member_mask=jnp.asarray(mask),
+        n_members=jnp.int32(int(np.sum(mask))),
+        metric=identity_metric(ndim), radius=jnp.float32(r),
+        lo=jnp.zeros(ndim), hi=jnp.ones(ndim),
+    )
+
+
+def _assert_counts_match(members, mask, pts, r):
+    got = np.asarray(count_within(_region_from(members, mask, r),
+                                  jnp.asarray(pts)))
+    d = scipy.spatial.distance.cdist(pts, members[mask])
+    want = (d < r).sum(axis=1)
+    # a pair within f32 rounding of the radius may fall either way
+    boundary = (np.abs(d - r) < 1e-4).sum(axis=1)
+    assert (np.abs(got - want) <= boundary).all()
+
+
+def _oracle_sq_radius(w, mask, inbag):
+    d = scipy.spatial.distance.cdist(w, w) ** 2
+    want = 0.0
+    for b in range(inbag.shape[0]):
+        oob = mask & ~inbag[b]
+        if not oob.any() or not inbag[b].any():
+            continue
+        want = max(want, d[np.ix_(oob, inbag[b])].min(axis=1).max())
+    return want
+
+
+def test_count_within_masked_members_vs_scipy():
+    rng = np.random.default_rng(0)
+    M, N, ndim = 128, 300, 3
+    members = rng.uniform(size=(M, ndim)).astype(np.float32)
+    mask = np.arange(M) < 100
+    pts = rng.uniform(-0.2, 1.2, size=(N, ndim)).astype(np.float32)
+    _assert_counts_match(members, mask, pts, 0.2)
+
+
+def test_count_within_large_member_set():
+    """M=8192 with a valid count that is no power of two."""
+    rng = np.random.default_rng(3)
+    M, N, ndim = 8192, 640, 3
+    members = rng.uniform(size=(M, ndim)).astype(np.float32)
+    mask = np.arange(M) < 7000
+    pts = rng.uniform(size=(N, ndim)).astype(np.float32)
+    _assert_counts_match(members, mask, pts, 0.05)
+
+
+def test_radius_from_inbag_matches_dispatch():
+    """bootstrapped_sq_radius is the fixed-bag reduction applied to the
+    bags that bootstrap_inbag_rounds draws from the same key."""
+    rng = np.random.default_rng(7)
+    M, ndim, nb = 96, 3, 10
+    w = jnp.asarray(rng.uniform(size=(M, ndim)), jnp.float32)
+    mask = jnp.asarray(np.arange(M) < 80)
+    key = jax.random.key(3)
+    want = float(bootstrapped_sq_radius(w, mask, key, nb))
+    inbag = bootstrap_inbag_rounds(mask, key, nb)
+    got = float(sq_radius_from_inbag(w, mask, inbag))
+    assert got == want, (got, want)
+
+
+@pytest.mark.parametrize("M,ndim,nb,n_valid,seed", [
+    (64, 2, 8, 50, 1),
+    (4096, 3, 10, 3500, 4),
+])
+def test_radius_from_inbag_matches_oracle(M, ndim, nb, n_valid, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(size=(M, ndim)).astype(np.float32)
+    mask = np.arange(M) < n_valid
+    inbag = rng.random((nb, M)) < 0.6
+    inbag[:, ~mask] = False
+    got = float(sq_radius_from_inbag(jnp.asarray(w), jnp.asarray(mask),
+                                     jnp.asarray(inbag)))
+    want = _oracle_sq_radius(w, mask, inbag)
+    assert np.isclose(got, want, rtol=1e-4, atol=1e-5), (got, want)
+
+
+def test_radius_empty_bag_round_is_ignored():
+    rng = np.random.default_rng(5)
+    M, ndim = 64, 2
+    w = rng.uniform(size=(M, ndim)).astype(np.float32)
+    mask = np.ones(M, bool)
+    inbag = np.zeros((3, M), bool)
+    inbag[1] = rng.random(M) < 0.5
+    got = float(sq_radius_from_inbag(jnp.asarray(w), jnp.asarray(mask),
+                                     jnp.asarray(inbag)))
+    want = _oracle_sq_radius(w, mask, inbag)
+    assert want > 0
+    assert np.isclose(got, want, rtol=1e-4), (got, want)

@@ -1,6 +1,8 @@
 """Subset decomposition vs a brute-force oracle (the reference's only
 fixture-based test is exactly this cross-check, profile_generate_subsets.py)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -112,3 +114,24 @@ def test_native_matches_numpy():
     for g in range(n_c):
         cols = np.where(out == g)[0]
         assert len(set(labels_np[cols])) == 1
+
+
+def _copy_native(tmp_path):
+    import shutil
+
+    for name in ("Makefile", "unionfind.cpp"):
+        shutil.copy(os.path.join(subsets._NATIVE_DIR, name), tmp_path / name)
+    return str(tmp_path)
+
+
+def test_native_library_rebuilds_when_source_is_newer(tmp_path):
+    native = _copy_native(tmp_path)
+    so = subsets.build_native(native)
+    assert os.path.exists(so)
+    built = os.path.getmtime(so)
+    assert subsets.build_native(native) == so  # up to date: no rebuild
+    assert os.path.getmtime(so) == built
+    src = os.path.join(native, "unionfind.cpp")
+    os.utime(src, (built + 10, built + 10))
+    subsets.build_native(native)
+    assert os.path.getmtime(so) > built

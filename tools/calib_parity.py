@@ -14,7 +14,7 @@ reference side from its measured run recorded in baseline_ref.json
 (tools/measure_reference_baseline.py ... nothing), the repo side executed
 here — and writes calib_parity.json with the paired medians.
 
-Usage: python tools/calib_parity.py    (CPU or TPU; writes at repo root)
+Usage: python tools/calib_parity.py    (CPU or GPU; writes at repo root)
 """
 
 import json
@@ -69,8 +69,8 @@ def main():
     # workload ~99% of the repo's CPU wall is inside the jitted engine step
     # (stats timing compute_wait), dominated by the O(nb * M^2) bootstrap
     # pairwise pass of the every-10-iterations region rebuild at the default
-    # member capacity — work the TPU MXU does in microseconds but XLA:CPU
-    # serializes. Measured (N=100): default 296 s; rebuild_every=50 -> 80 s;
+    # member capacity — work that is one small matmul on an accelerator
+    # but that XLA:CPU serializes. Measured (N=100): default 296 s; rebuild_every=50 -> 80 s;
     # member_capacity=1024 -> 144 s; both -> 47 s, with the calibration
     # median unchanged (-1.286 vs -1.294 default, reference -1.275). A
     # second tuned run records that configuration's numbers alongside.
@@ -116,7 +116,7 @@ def main():
             "reference's 2.3 s on this trivial workload: ~99% of the wall "
             "was the O(nb*M^2) bootstrap pairwise pass of the then-default "
             "10-iteration region-rebuild cadence at the default member "
-            "capacity (microseconds on the TPU MXU, serialized on "
+            "capacity (one small matmul on an accelerator, serialized on "
             "XLA:CPU). The reference's own draw-based rebuild cadence "
             "(every 1000 draws, sample.py:134), now the default, cuts "
             "rebuilds ~6x on easy phases; the residual ~18x gap is the "

@@ -16,7 +16,7 @@ Writes ``quad_tail.json`` with per-seed per-outlier detail and a verdict.
     python tools/quad_tail.py [out.json]
 
 Runs ndata=100 of the N_GEN=1000 horns stream at nlive=400 tol=0.5,
-3 seeds; works on CPU or TPU (CPU takes ~15 min).
+3 seeds; works on CPU or GPU (CPU takes ~15 min).
 """
 
 import json
